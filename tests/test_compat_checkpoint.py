@@ -97,7 +97,7 @@ def test_resume_from_checkpoint(tmp_path, small_grid):
 
     g = small_grid
     up0, uc0, m = make_correctness_ic(g)
-    cfg = tf.SimConfig(dt=0.001, nsteps=6, backend="jnp", ring="exact")
+    cfg = tf.SimConfig(dt=0.001, nsteps=6, backend="jnp")
     sim = tf.Simulator(g, cfg, m)
     st = sim.prepare_state(up0, uc0)
     st = sim.run(st, None, 6)

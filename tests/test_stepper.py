@@ -102,7 +102,7 @@ def test_run_timed_returns_final_state(small_grid):
     state = sim.prepare_state(up0, uc0)
     (up, uc, ut), secs = sim.run_timed(state)
     _, uc_ref = tf.oracle_run(up0, uc0, m, small_grid, 0.001, 10, dtype=np.float64)
-    assert secs >= 0.0
+    assert secs > 0.0
     assert rel_l2(uc, uc_ref) < 1e-4
 
 

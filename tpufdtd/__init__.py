@@ -1,14 +1,14 @@
-"""tpufdtd — TPU-native 3D acoustic FDTD engine.
+"""tpufdtd — 3D acoustic FDTD engine in JAX.
 
-A from-scratch JAX/Pallas rebuild of the capabilities of
-ycnliu/Accelerated-3D-Acoustic-FDTD-Kernel (see SURVEY.md): 4th-order
-(radius-2, generalized to orders 2-8) spatial stencil + 2nd-order leapfrog
-time integration on a halo-padded regular grid, Ricker point sources injected
-by trilinear scatter-add, a NumPy correctness oracle, an XLA-fused jnp
-backend, a Pallas TPU kernel backend, bf16-storage mixed precision, a
-multi-chip shard_map path with ppermute halo exchange, and a benchmark
-harness reproducing the reference's correctness phase and 23-column CSV
-performance schema.
+A from-scratch JAX rebuild of the capabilities of
+ycnliu/Accelerated-3D-Acoustic-FDTD-Kernel (see SURVEY.md): central-difference
+spatial stencils of orders 2-12 (the reference's order 4 by default) +
+2nd-order leapfrog time integration on a halo-padded regular grid, Ricker
+point sources injected by trilinear scatter-add, a NumPy correctness oracle,
+an XLA-fused jnp engine, a Hopper plane-sweep kernel (Pallas, Triton route),
+bf16-storage mixed precision, a multi-device shard_map path with ppermute
+halo exchange, and a benchmark harness reproducing the reference's
+correctness phase and CSV performance schema.
 """
 
 from .config import Grid3D, SimConfig, stencil_weights, halo_for_order  # noqa: F401
@@ -19,7 +19,6 @@ from .stepper import (  # noqa: F401
     simulate,
     simulate_ring,
     run_scan,
-    get_step_fn,
 )
 from .wavelets import ricker, ricker_table, default_source_coords  # noqa: F401
 from . import checkpoint, compat  # noqa: F401

@@ -2,7 +2,7 @@
 
 The reference has no checkpointing; its full state lives in the host `u`
 array between kernel calls and is "trivially checkpointable by the caller"
-(SURVEY.md §5). The TPU build makes that explicit: the simulation state is a
+(SURVEY.md §5). This build makes that explicit: the simulation state is a
 ring of reference-layout arrays plus the step counter, saved/restored as npz.
 Resuming mid-run reproduces the unsplit run exactly (the ring carries all
 state the leapfrog needs).

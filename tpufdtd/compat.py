@@ -3,8 +3,8 @@
 The reference exposes exactly one function signature per backend
 (main.cpp:53-72): a complete self-contained simulation run over a 3-level
 ring array with inclusive interior bounds, geometry scalars, source/time
-ranges and a two-section profiler out-param. `kernel_tpu` reproduces that
-call contract on the TPU engine so a driver written against the reference's
+ranges and a two-section profiler out-param. `kernel_tpu` (named after the
+package) reproduces that call contract on this engine so a driver written against the reference's
 ABI maps 1:1 (numpy arrays in place of dataobj buffers; deviceid/devicerm
 accepted for signature parity — device residency is managed by JAX).
 
@@ -60,7 +60,7 @@ def kernel_tpu(
     deviceid: int = 0,
     devicerm: int = 1,
     timers: Optional[Profiler] = None,
-    backend: str = "pallas",
+    backend: str = "auto",
 ) -> int:
     """Run the simulation over u[3, nxp, nyp, nzp] in place; returns 0.
 
@@ -70,10 +70,12 @@ def kernel_tpu(
     warmup, cuda.cu:232).
     """
     del deviceid, devicerm  # signature parity; JAX owns device placement
-    assert x_m == 0 and y_m == 0 and z_m == 0, "interior must start at 0"
+    if (x_m, y_m, z_m) != (0, 0, 0):
+        raise ValueError("interior bounds must start at 0")
     nx, ny, nz = x_M + 1, y_M + 1, z_M + 1
     grid = Grid3D(nx, ny, nz, h_x, h_y, h_z, o_x, o_y, o_z)
-    assert u.shape == (3,) + grid.padded_shape, (u.shape, grid.padded_shape)
+    if u.shape != (3,) + grid.padded_shape:
+        raise ValueError(f"u has shape {u.shape}, expected {(3,) + grid.padded_shape}")
 
     nsteps = time_M - time_m + 1
     if nsteps <= 0:
@@ -87,7 +89,7 @@ def kernel_tpu(
         else None
     )
 
-    cfg = SimConfig(dt=dt, nsteps=nsteps, backend=backend, ring="exact")
+    cfg = SimConfig(dt=dt, nsteps=nsteps, backend=backend)
     sim = Simulator(grid, cfg, m, coords)
 
     # entry ring mapping (cuda.cu:233-235)

@@ -1,4 +1,4 @@
-"""Core types and constants for the TPU-native 3D acoustic FDTD engine.
+"""Core types and constants for the 3D acoustic FDTD engine.
 
 Physics contract (see SURVEY.md §2.6; reference: /root/reference):
   PDE         m * d2u/dt2 = Lap(u) + source     (m ~ slowness^2 medium field)
@@ -7,7 +7,7 @@ Physics contract (see SURVEY.md §2.6; reference: /root/reference):
   Temporal    2nd-order leapfrog over two carried time levels:
               u_next = 2*u_cur - u_prev + dt^2 * Lap(u_cur) / m
               (the reference stores 3 levels in a %3 ring, cuda.cu:233-235;
-              the TPU build carries (u_prev, u_cur) through lax.scan instead)
+              stepper.run_scan carries the same 3-level ring through lax.scan)
   Storage     halo-padded float32 arrays [nxp, nyp, nzp], nxp = nx + 2*halo,
               halo = stencil_order (NOT the radius; main.cpp:31-32 pads by 4
               for the radius-2 order-4 stencil and DEBUG.md:299-305 records
@@ -144,35 +144,12 @@ class SimConfig:
     dt: float = 0.001
     nsteps: int = 50
     warmup_steps: int = 5
-    backend: str = "pallas"  # "jnp" | "pallas" | "pallas_v2"
-    # bf16 storage / f32 compute mixed precision (the TPU analogue of the
-    # reference's FP16-main-array + FP32-shadow design, cuda_optimized.cu:296-343).
+    # "auto" = the Hopper plane-sweep kernel for float32 storage on a GPU
+    # where it measured faster (stepper.PLANE_SWEEP_WINS), the XLA-fused
+    # jnp step everywhere else; "jnp" / "plane_sweep" force one engine
+    # (stepper.resolve_backend)
+    backend: str = "auto"
+    # bf16 storage / f32 compute mixed precision (the analogue of the
+    # reference's FP16-main-array + FP32-shadow design,
+    # cuda_optimized.cu:296-343); runs on the jnp engine
     storage_dtype: str = "float32"  # "float32" | "bfloat16"
-    # uniform-medium fast path: None = auto-detect (m constant everywhere ->
-    # keep m out of HBM as a kernel scalar); the benchmark medium is uniform
-    # (m = 1.5, main.cpp:352)
-    assume_uniform_m: bool | None = None
-    # temporal fusion: timesteps computed per HBM pass (the reference's
-    # unimplemented FDTD_TFUSE knob, main.cpp:266-276). 0 = auto (the v5
-    # sweep kernel, K=4 when eligible, degrading with source placement /
-    # VMEM; else fused pairs, else unfused); 1 = no fusion (v4 packed);
-    # 2 = v4 fused pairs; 3..6 = v5 sweep at exactly K.
-    t_fuse: int = 0
-    # ring mode: "exact" = 3-buffer %3 ring, bit-faithful to the reference's
-    # per-ring-level frozen rims for ANY ICs; "fast" = 2-buffer in-place
-    # leapfrog (u_next overwrites u_prev), valid when all levels share
-    # identical rims and no source touches a rim (always true for the
-    # benchmark's zero ICs + interior sources); "auto" picks fast when legal
-    ring: str = "auto"
-    # paired-plane sweep mode: "auto" batches two x-planes per vector op /
-    # DMA in the sweep kernel when eligible (radius 2, even nx, VMEM fits) —
-    # bitwise-identical output, ~2x fewer VPU op issues (the dominant cost
-    # for sub-256^2 planes); "off" forces per-plane, "on" requires pairing
-    pair: str = "auto"
-    # sharded-sweep exchange/compute overlap: split each K-block into an
-    # x-interior slab (reads only pre-exchange planes, so XLA's latency-
-    # hiding scheduler can run the x ppermute during its kernel) plus two
-    # edge slabs computed after the exchange lands — bitwise-identical to
-    # the serial exchange->kern order (SURVEY §7 "hard parts"). "auto"/"on"
-    # enable it whenever the shard is wide enough; "off" keeps serial.
-    overlap: str = "auto"

@@ -1,11 +1,12 @@
 """Unified benchmark CLI — the reference's main() flow (main.cpp:767-835):
-detect chip -> print config -> Step 1 correctness -> Step 2 performance
+detect device -> print config -> Step 1 correctness -> Step 2 performance
 sweep over all backends (fresh CSV) -> Step 3 echo the CSV.
 
 Usage:
   python -m tpufdtd.harness.cli                       # full run
-  python -m tpufdtd.harness.cli --sizes 32 64 128 --grids 64 128 256
-  python -m tpufdtd.harness.cli --skip-correctness --backends pallas
+  python -m tpufdtd.harness.cli --sizes 32 64 128 --grids 64 128 512
+  python -m tpufdtd.harness.cli --skip-correctness --backends plane_sweep
+  python -m tpufdtd.harness.cli --sharded 4 --grids 512   # 4 real devices
 """
 
 from __future__ import annotations
@@ -14,26 +15,24 @@ import argparse
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-
-
-def _enable_compile_cache():
-    """Persistent compile cache (the env var alone is ignored on this
-    stack — jax.config must be set explicitly before first compile)."""
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
-from ..utils.envcfg import runtime_config
-from ..utils.peaks import detect_peaks
+from ..utils.envcfg import enable_compile_cache, storage_dtype
 from .correctness import run_correctness
 from .perf import DEFAULT_GRIDS, run_benchmark
 
 
+def default_backends(storage: str = "float32"):
+    """Every engine this platform runs for this storage dtype: jnp
+    everywhere, plus the float32 plane-sweep kernel on a GPU."""
+    import jax
+
+    if jax.default_backend() == "gpu" and storage == "float32":
+        return ["jnp", "plane_sweep"]
+    return ["jnp"]
+
+
 def main(argv=None):
-    _enable_compile_cache()
-    p = argparse.ArgumentParser(description="TPU 3D acoustic FDTD benchmark")
+    enable_compile_cache()
+    p = argparse.ArgumentParser(description="3D acoustic FDTD benchmark")
     p.add_argument("--sizes", type=int, nargs="*",
                    default=[32, 64, 128, 256, 512],
                    help="correctness grid sizes (the reference ladder"
@@ -44,51 +43,33 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--sources", type=int, default=1)
-    p.add_argument("--backends", nargs="*", default=["jnp", "pallas"])
+    p.add_argument("--backends", nargs="*", default=None,
+                   help="engines to run (default: every engine this"
+                        " platform runs)")
     p.add_argument("--csv", default="benchmark.csv")
     p.add_argument("--skip-correctness", action="store_true")
     p.add_argument("--skip-perf", action="store_true")
     p.add_argument("--hbm-frac", type=float, default=0.6,
-                   help="fraction of HBM the working-set guard may use"
-                        " (the reference's 40 GB guard, main.cpp:337-341;"
-                        " raise toward 0.9 to reach the largest banded"
-                        " grids on a 16 GiB chip)")
+                   help="fraction of the device's memory the working-set"
+                        " guard may use (the reference's 40 GB guard,"
+                        " main.cpp:337-341)")
     p.add_argument("--order", type=int, default=4,
                    help="spatial stencil order for the perf phase (the"
-                        " reference's STENCIL_ORDER macro, main.cpp:26-29;"
-                        " the sweep engine covers 2-6, packed engines 8-12)")
-    p.add_argument("--measure-split", choices=["auto", "on", "off"],
-                   default="auto",
-                   help="section0/section1 split: 'on' measures it with a"
-                        " second stencil-only program, 'off' uses the"
-                        " work-share estimate. 'auto' measures on the jnp"
-                        " backend and estimates on pallas — mirroring the"
-                        " reference, whose naive kernels time sections"
-                        " (cuda.cu:267-314) while its optimized kernel"
-                        " estimates 85/15 (main.cpp:429-433); on this stack"
-                        " the extra pallas program costs a second ~30-45 min"
-                        " remote Mosaic compile per grid size")
-    p.add_argument("--timing-repeat", type=int, default=None,
-                   help="override the timed-span stretch factor (default:"
-                        " auto ~8x a 45-step 512^3 span; the order-8 packed"
-                        " engine's 360-step span exceeds VMEM, so order-8"
-                        " rows use --timing-repeat 1)")
+                        " reference's STENCIL_ORDER macro, main.cpp:26-29)")
     p.add_argument("--append-csv", action="store_true",
                    help="append to an existing CSV instead of replacing it "
                         "(the reference always starts fresh, main.cpp:796)")
     p.add_argument("--sharded", type=int, default=0, metavar="N",
-                   help="benchmark the sharded engine over an N-device mesh"
-                        " (virtual CPU mesh dryrun when < N real chips);"
-                        " emits benchmark_sharded.csv rows with Devices and"
-                        " Scaling_Eff columns")
+                   help="benchmark the sharded engine over N devices of"
+                        " this platform; emits benchmark_sharded.csv rows"
+                        " with Devices and Scaling_Eff columns")
     args = p.parse_args(argv)
 
-    if args.sharded:
-        # must provision the mesh BEFORE any JAX backend init below
-        from .perf_sharded import provision_virtual_mesh, run_sharded_benchmark
+    import jax
 
-        provision_virtual_mesh(args.sharded)
-        _enable_compile_cache()
+    if args.sharded:
+        from .perf_sharded import run_sharded_benchmark
+
         run_sharded_benchmark(
             args.sharded,
             grids=args.grids,
@@ -103,29 +84,35 @@ def main(argv=None):
                 sys.stdout.write(f.read())
         return 0
 
-    rc = runtime_config()
-    peaks = detect_peaks()
+    storage = storage_dtype()
+    backends = args.backends or default_backends(storage)
+    dev = jax.devices()[0]
     print("==========================================")
-    print(" TPU-native 3D acoustic FDTD benchmark")
+    print(" 3D acoustic FDTD benchmark")
     print("==========================================")
-    print(f"Device: {peaks.name}")
-    print(f"Peak HBM BW: {peaks.hbm_gbps:.0f} GB/s | "
-          f"VPU f32 est: {peaks.fp32_gflops:.0f} GFLOP/s | "
-          f"HBM: {peaks.hbm_gib:.0f} GiB")
-    print(f"Runtime config: backend={rc.backend} storage={rc.storage} "
-          f"t_fuse={rc.t_fuse} vmem={rc.vmem_budget_mib}MiB")
+    print(f"Device: {dev.platform} {dev.device_kind} x{jax.device_count()}")
+    if dev.platform == "gpu":
+        from ..utils.peaks import detect_peaks
+
+        peaks = detect_peaks()
+        print(f"Published peaks: {peaks.hbm_gbps:.0f} GB/s HBM |"
+              f" {peaks.fp32_gflops:.0f} GFLOP/s fp32 | {peaks.hbm_gb:.0f} GB")
+    else:
+        print("Published peaks: none for this platform (efficiencies not"
+              " measured)")
+    print(f"Runtime config: backends={','.join(backends)} storage={storage}")
 
     ok = True
     if not args.skip_correctness:
         print("\n=== Step 1: Correctness ===")
-        reports = run_correctness(args.sizes, args.steps, args.backends)
+        reports = run_correctness(args.sizes, args.steps, backends)
         ok = all(r.passed for r in reports)
 
     if not args.skip_perf:
         print("\n=== Step 2: Performance ===")
         if args.csv and os.path.exists(args.csv) and not args.append_csv:
             os.remove(args.csv)
-        for backend in args.backends:
+        for backend in backends:
             run_benchmark(
                 method=backend,
                 grids=args.grids,
@@ -133,18 +120,9 @@ def main(argv=None):
                 nsrc=args.sources,
                 reps=args.reps,
                 csv_path=args.csv,
-                storage_dtype=rc.storage,
-                peaks=peaks,
+                storage_dtype=storage,
                 hbm_budget_frac=args.hbm_frac,
-                t_fuse=rc.t_fuse,
-                pair=rc.pair,
                 order=args.order,
-                timing_repeat=args.timing_repeat,
-                measure_split=(
-                    backend == "jnp"
-                    if args.measure_split == "auto"
-                    else args.measure_split == "on"
-                ),
             )
         if args.csv and os.path.exists(args.csv):
             print("\n=== Step 3: Results (benchmark.csv) ===")

@@ -83,7 +83,7 @@ def make_ic(grid: Grid3D):
 def run_correctness_single(
     size: int,
     nsteps: int = 50,
-    backends: Iterable[str] = ("jnp", "pallas"),
+    backends: Iterable[str] = ("jnp",),
     verbose: bool = True,
 ) -> List[ErrorReport]:
     grid = Grid3D(size, size, size, hx=1.0, hy=1.0, hz=1.0)
@@ -117,7 +117,7 @@ def run_correctness_single(
 def run_correctness(
     sizes: Iterable[int] = DEFAULT_SIZES,
     nsteps: int = 50,
-    backends: Iterable[str] = ("jnp", "pallas"),
+    backends: Iterable[str] = ("jnp",),
     verbose: bool = True,
 ) -> List[ErrorReport]:
     """Correctness sweep over the reference ladder 32^3-512^3

@@ -16,7 +16,7 @@ from ..wavelets import default_source_coords, ricker_table
 def run_speed_test(
     sizes: Iterable[int] = (64, 128),
     timesteps: int = 100,
-    backends: Tuple[str, str] = ("jnp", "pallas"),
+    backends: Tuple[str, str] = ("jnp", "plane_sweep"),
     verbose: bool = True,
 ):
     """Returns [(size, t_a_seconds, t_b_seconds, speedup_b_over_a), ...]."""

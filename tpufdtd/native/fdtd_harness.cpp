@@ -2,7 +2,7 @@
 //
 // Plays the role of the reference's C++ host harness (main.cpp): input
 // generation, error scans over multi-hundred-MB fields, rep statistics and
-// CSV output. The TPU compute path stays in XLA/Pallas; this library keeps
+// CSV output. The device compute path stays in XLA/Pallas; this library keeps
 // the host-side hot loops (3*volp-element comparison scans, main.cpp:577-592)
 // native instead of NumPy.
 //

@@ -1,15 +1,4 @@
-"""Compute ops: jnp (portable/XLA-fused) and Pallas (TPU-native) stencil steps."""
-
-import importlib
+"""Stencil steps: `stencil_jnp` (XLA-fused, any platform) and `stencil_gpu`
+(the Hopper plane-sweep kernel, imported on use)."""
 
 from . import stencil_jnp  # noqa: F401
-
-__all__ = ["stencil_jnp", "stencil_pallas"]
-
-
-def __getattr__(name):
-    # stencil_pallas is imported lazily so CPU-only usage never touches
-    # Pallas machinery unless the backend is actually requested.
-    if name == "stencil_pallas":
-        return importlib.import_module(".stencil_pallas", __name__)
-    raise AttributeError(name)

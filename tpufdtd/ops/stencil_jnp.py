@@ -1,14 +1,13 @@
-"""Fused-jnp leapfrog step — XLA-compiled fallback backend and on-device oracle.
+"""Fused-jnp leapfrog step — the XLA backend and the on-device oracle partner.
 
 Same arithmetic as tpufdtd.oracle (which mirrors openacc.cpp:94-111), written
 as shifted interior slices so XLA fuses the whole 13/19/25-point stencil +
 leapfrog update into a single elementwise pass over the grid. Used as:
   * the portable backend ("jnp") on any JAX platform,
-  * the differential-test partner for the Pallas kernel,
+  * the differential-test partner of the plane-sweep kernel,
   * the per-shard compute inside the sharded stepper.
 
-Works on any Layout (reference or TPU-aligned); defaults to the reference
-layout of the grid.
+Arrays are in the reference layout [n + 2*halo]^3 of the grid.
 """
 
 from __future__ import annotations
@@ -19,7 +18,16 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import Grid3D, stencil_weights
-from ..layout import Layout
+
+
+def _shifted(grid: Grid3D, axis: int, d: int):
+    """Interior-sized slices shifted by d along `axis`."""
+    h = grid.halo
+    n = (grid.nx, grid.ny, grid.nz)
+    return tuple(
+        slice(h + (d if ax == axis else 0), h + (d if ax == axis else 0) + n[ax])
+        for ax in range(3)
+    )
 
 
 def leapfrog_step(
@@ -30,7 +38,6 @@ def leapfrog_step(
     *,
     grid: Grid3D,
     dt: float,
-    layout: Layout | None = None,
 ) -> jnp.ndarray:
     """One leapfrog step on full padded arrays.
 
@@ -40,8 +47,6 @@ def leapfrog_step(
     Computes in f32 regardless of the storage dtype of u (bf16 storage /
     f32 compute mixed precision, SURVEY.md §7 layer 5).
     """
-    if layout is None:
-        layout = Layout.reference(grid)
     storage = u_cur.dtype
     u0 = u_cur.astype(jnp.float32)
     u1 = u_prev.astype(jnp.float32)
@@ -56,7 +61,7 @@ def leapfrog_step(
     )
     W = stencil_weights(grid.order)
 
-    interior = layout.interior_slices()
+    interior = grid.interior_slices()
     u0c = u0[interior]
     u1c = u1[interior]
     mc = m[interior].astype(jnp.float32)
@@ -67,7 +72,7 @@ def leapfrog_step(
         acc = r5
         for d in range(grid.radius, 0, -1):
             acc = acc + W[d] * (
-                u0[layout.shifted_slices(axis, -d)] + u0[layout.shifted_slices(axis, d)]
+                u0[_shifted(grid, axis, -d)] + u0[_shifted(grid, axis, d)]
             )
         lap = lap + rax[axis] * acc
 
@@ -78,6 +83,6 @@ def leapfrog_step(
     return base.at[interior].set(upd.astype(storage))
 
 
-def make_step(grid: Grid3D, dt: float, layout: Layout | None = None):
+def make_step(grid: Grid3D, dt: float):
     """Bind the static config; returns step(u_cur, u_prev, m, target) -> u_next."""
-    return partial(leapfrog_step, grid=grid, dt=dt, layout=layout)
+    return partial(leapfrog_step, grid=grid, dt=dt)

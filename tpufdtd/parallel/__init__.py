@@ -1,5 +1,5 @@
 """Multi-chip spatial domain decomposition (SURVEY.md §5: the reference is
-strictly single-GPU and skips grids over 40 GB, main.cpp:337-341; the TPU
+strictly single-GPU and skips grids over 40 GB, main.cpp:337-341; this
 build shards the grid over a device mesh instead)."""
 
 from .sharded import (  # noqa: F401

@@ -1,19 +1,20 @@
-"""Multi-chip FDTD via shard_map + ppermute halo exchange over ICI.
+"""Multi-device FDTD via shard_map + ppermute halo exchange.
 
-TPU-native replacement for the capability the reference lacks (it skips any
-grid over one GPU's memory, main.cpp:337-341): the grid is decomposed along
-x over a 1-D `jax.sharding.Mesh`; every device owns
-[halo + nx/ndev + halo, nyp, nzp] including private halo slots. Each timestep:
+The capability the reference lacks (it skips any grid over one GPU's
+memory, main.cpp:337-341): the grid is decomposed along x over a 1-D
+`jax.sharding.Mesh`; every device owns [halo + nx/ndev + halo, nyp, nzp]
+including private halo slots. Each timestep:
 
   1. `lax.ppermute` sends each shard's outermost `radius` interior planes to
-     its neighbors (ICI neighbor exchange, both directions);
+     its neighbors (both directions; NCCL between GPUs);
   2. received planes are written into the halo slots (edge devices keep their
      frozen global-rim values — ppermute has no wraparound here);
   3. the ordinary single-chip leapfrog step runs on the local block, writing
      only the local interior of the target ring buffer.
 
 The whole N-step scan sits INSIDE the shard_map region, so XLA compiles one
-program per device with pure ICI collectives and zero host involvement.
+program per device with device-to-device collectives and zero host
+involvement.
 
 Ring/rim semantics match the single-chip path exactly; sources are
 precomputed per shard (corners padded to a uniform count so every shard runs
@@ -31,29 +32,23 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import Grid3D, SimConfig
-from ..layout import Layout
 from ..ops import stencil_jnp
 from ..sources import build_source_term
 
 
-def make_mesh(n_devices: Optional[int] = None, axis: str = "x",
-              shape: Optional[Tuple[int, int]] = None,
-              axes: Tuple[str, str] = ("x", "y")) -> Mesh:
-    """1-D mesh over the first n_devices (default), or a 2-D (ndx, ndy)
-    mesh when `shape` is given — the 2-D mesh runs the sweep engine with
-    x- AND y-split shards (sharded_sweep 2-D path)."""
+def make_mesh(n_devices: Optional[int] = None, axis: str = "x") -> Mesh:
+    """1-D mesh over the first n_devices devices (default: all of them);
+    raises when fewer exist."""
     devs = jax.devices()
-    if shape is not None:
-        ndx, ndy = shape
-        devs = devs[: ndx * ndy]
-        return Mesh(np.array(devs).reshape(ndx, ndy), axes)
-    if n_devices is not None:
-        devs = devs[:n_devices]
-    return Mesh(np.array(devs), (axis,))
+    n = len(devs) if n_devices is None else n_devices
+    if n > len(devs):
+        raise ValueError(f"a {n}-device mesh needs {n} devices; found {len(devs)}")
+    return Mesh(np.array(devs[:n]), (axis,))
 
 
 def _local_grid(grid: Grid3D, ndev: int) -> Grid3D:
-    assert grid.nx % ndev == 0, (grid.nx, ndev)
+    if grid.nx % ndev:
+        raise ValueError(f"nx={grid.nx} does not split over {ndev} devices")
     return dataclasses.replace(grid, nx=grid.nx // ndev)
 
 
@@ -124,93 +119,34 @@ class ShardedSimulator:
         self.mesh = mesh
         self.axis = mesh.axis_names[0]
         self.ndev = mesh.devices.size
-        self.mesh_2d = len(mesh.axis_names) > 1
-        if self.mesh_2d:
-            # 2-D (x, y) meshes run ONLY the sweep engine (the per-step
-            # fallback program is 1-D); build it now and fail loudly if the
-            # configuration can't use it
-            from .sharded_sweep import SweepShard
-
-            self.sweep = SweepShard.try_build(grid, cfg, m, mesh, src_coords)
-            if self.sweep is None:
-                raise ValueError(
-                    "a 2-D mesh requires the sharded sweep engine:"
-                    " backend='pallas', order <= 4, nx % ndx == 0,"
-                    " ny % ndy == 0, per-shard nx and ny >= K*radius with"
-                    " sublane-aligned extended rows, and sources (if any)"
-                    " fully inside the global interior"
-                )
-            self.h = grid.halo
-            self.R = grid.radius
-            return
         self.lgrid = _local_grid(grid, self.ndev)
-        self.layout = Layout.reference(self.lgrid)
         self.h = grid.halo
         self.R = grid.radius
         self.lnx = self.lgrid.nx
+        # per-shard step: the jnp step (f32 compute, bf16 storage upcast
+        # per step like the single-device JnpEngine)
+        self.step_fn = stencil_jnp.make_step(self.lgrid, cfg.dt)
 
-        # flagship path: temporally-fused sweep kernel per shard with a deep
-        # halo exchange once per K steps (sharded_sweep.SweepShard); engaged
-        # at prepare() time when the ICs satisfy the identical-rims fast-ring
-        # requirement, else the per-step program below runs.
-        from .sharded_sweep import SweepShard
-
-        self.sweep = SweepShard.try_build(grid, cfg, m, mesh, src_coords)
-
-        if cfg.backend == "pallas" and cfg.storage_dtype != "bfloat16":
-            # per-shard Pallas leapfrog (interpret mode off-TPU); the halo
-            # exchange stays in XLA collectives around the kernel call. The
-            # kernel needs the TPU layout (8-aligned y pads); x pads are
-            # identical to the reference layout, so the ppermute exchange
-            # indexing is unchanged.
-            from ..ops import stencil_pallas
-
-            self.layout = Layout.tpu(self.lgrid)
-            self.step_fn = stencil_pallas.make_step(
-                self.lgrid, cfg.dt, self.layout
-            )
-        else:
-            # jnp per-shard step; also the bf16-storage fallback when the
-            # sweep path is ineligible (f32 compute with per-step upcast,
-            # like the single-chip JnpEngine route)
-            self.step_fn = stencil_jnp.make_step(self.lgrid, cfg.dt, self.layout)
-        self._dy = self.layout.pad_lo[1] - self.h  # y shift vs reference
-
-        # per-shard source terms (corner indices in local coordinates)
+        # per-shard source terms: the global term's corners (weights exactly
+        # the single-device ones), each moved to the shard that owns its
+        # global interior x index; edge-slack corners at -1 / nx belong to
+        # the edge shards
+        t = build_source_term(grid, src_coords, m)
+        owner = np.clip((t.ix.astype(np.int64) - self.h) // self.lnx, 0,
+                        self.ndev - 1)
         terms = []
-        m_np = np.asarray(m, np.float32)
         for d in range(self.ndev):
-            if src_coords is None:
-                terms.append(build_source_term(self.lgrid, None, m_np))
-                continue
-            # shift physical x so that this shard's interior starts at 0
-            local_coords = np.array(src_coords, np.float32).copy()
-            local_coords[:, 0] -= np.float32(d * self.lnx * grid.hx)
-            lo = d * self.lnx
-            m_local = m_np[lo : lo + self.lnx + 2 * self.h]
-            t = build_source_term(self.lgrid, local_coords, m_local)
-            # a corner is owned by the shard whose interior-or-slack region
-            # contains it; drop corners outside [0, lxp) or duplicated in the
-            # halo overlap: owner = shard of the corner's global interior
-            # x index (edge-slack corners at -1 / nx belong to the edge shards)
-            gx_int = t.ix.astype(np.int64) - self.h + lo  # global interior x
-            owner = np.clip(gx_int // self.lnx, 0, self.ndev - 1)
             keep = owner == d
             terms.append(
                 dataclasses.replace(
                     t,
-                    ix=t.ix[keep],
+                    ix=t.ix[keep] - np.int32(d * self.lnx),
                     iy=t.iy[keep],
                     iz=t.iz[keep],
                     scale=t.scale[keep],
                     src_idx=t.src_idx[keep],
                 )
             )
-        if self._dy:
-            terms = [
-                dataclasses.replace(t, iy=t.iy + np.int32(self._dy))
-                for t in terms
-            ]
         self.packed_terms = _pad_terms(terms)
 
         self._build_program()
@@ -273,7 +209,6 @@ class ShardedSimulator:
                 mesh=self.mesh,
                 in_specs=((spec3, spec3, spec3), spec3),
                 out_specs=(spec3, spec3, spec3),
-                check_vma=False,  # pallas_call out_shape carries no vma
             )
             return f(state, m_sh)
 
@@ -301,7 +236,6 @@ class ShardedSimulator:
                     P(),
                 ),
                 out_specs=(spec3, spec3, spec3),
-                check_vma=False,  # pallas_call out_shape carries no vma
             )
             return f(state, m_sh, packed, src_table)
 
@@ -316,43 +250,11 @@ class ShardedSimulator:
 
     def _shard(self, arr: np.ndarray, dtype=jnp.float32):
         stacked = shards_from_global(self.grid, self.ndev, np.asarray(arr))
-        if not self.layout.is_reference:
-            lxp = self.lnx + 2 * self.h
-            stacked = np.concatenate(
-                [
-                    self.layout.embed(stacked[d * lxp : (d + 1) * lxp])
-                    for d in range(self.ndev)
-                ],
-                axis=0,
-            )
         sh = NamedSharding(self.mesh, P(self.axis))
         return jax.device_put(jnp.asarray(stacked, dtype), sh)
 
-    @staticmethod
-    def _rims_identical(arrs, h) -> bool:
-        a0 = arrs[0]
-        rims = lambda a: (
-            a[:h], a[-h:], a[:, :h], a[:, -h:], a[..., :h], a[..., -h:]
-        )
-        r0 = rims(a0)
-        return all(
-            all(np.array_equal(x, y) for x, y in zip(rims(a), r0))
-            for a in arrs[1:]
-        )
-
     def prepare(self, u_prev, u_cur, m, u_target=None):
-        ut = np.asarray(u_cur if u_target is None else u_target)
-        if self.sweep is not None and self._rims_identical(
-            [np.asarray(u_prev), np.asarray(u_cur), ut], self.h
-        ):
-            U, zrT = self.sweep.prepare(np.asarray(u_prev), np.asarray(u_cur))
-            return {"sweep": (U, zrT)}, None, None
-        if self.mesh_2d:
-            raise ValueError(
-                "the 2-D-mesh sharded sweep needs identical rims across all"
-                " ring levels (standard ICs satisfy this); differing rims"
-                " require the exact 3-level ring, which is 1-D-mesh only"
-            )
+        ut = u_cur if u_target is None else u_target
         sdt = (
             jnp.bfloat16 if self.cfg.storage_dtype == "bfloat16"
             else jnp.float32
@@ -372,35 +274,19 @@ class ShardedSimulator:
         return state, m_sh, packed
 
     def run(self, state, m_sh, packed, src: Optional[np.ndarray], nsteps: int):
-        if isinstance(state, dict):
-            U, zrT = state["sweep"]
-            U = self.sweep.run(U, zrT, src, nsteps)
-            return {"sweep": (U, zrT)}
         if src is None or packed is None:
             return self._program_plain(state, m_sh, nsteps)
         src_table = jnp.asarray(src[:nsteps], jnp.float32)
         return self._program_src(state, m_sh, packed, src_table, nsteps)
 
     def extract_state(self, state):
-        """Global reference-layout levels: (u_{N-1}, u_N, u_{N-2}) from the
-        exact per-step ring, (u_{N-1}, u_N) from the 2-buffer sweep ring."""
-        if isinstance(state, dict):
-            U, zrT = state["sweep"]
-            return self.sweep.extract(U, zrT)
-        out = []
-        for x in state:
-            x = np.asarray(jnp.asarray(x, jnp.float32))
-            if not self.layout.is_reference:
-                lxp_t = self.lnx + 2 * self.layout.pad_lo[0]
-                x = np.concatenate(
-                    [
-                        self.layout.extract(x[d * lxp_t : (d + 1) * lxp_t])
-                        for d in range(self.ndev)
-                    ],
-                    axis=0,
-                )
-            out.append(global_from_shards(self.grid, self.ndev, x))
-        return tuple(out)
+        """Global reference-layout levels (u_{N-1}, u_N, u_{N-2})."""
+        return tuple(
+            global_from_shards(
+                self.grid, self.ndev, np.asarray(jnp.asarray(x, jnp.float32))
+            )
+            for x in state
+        )
 
 
 def simulate_sharded(

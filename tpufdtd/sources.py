@@ -3,10 +3,11 @@
 The reference scatters each source into the 8 lattice corners around its
 continuous coordinate with an atomicAdd per corner, recomputing positions and
 weights every timestep (openacc.cpp:172-204, cuda.cu:112-170). Source
-coordinates are static for a whole run, so the TPU build precomputes the
+coordinates are static for a whole run, so this build precomputes the
 corner indices and combined weights once on the host and reduces the per-step
 work to one gather of src[t] and one scatter-add — the atomicAdd becomes a
-deterministic `u.at[idx].add(...)` XLA scatter.
+`u.at[idx].add(...)` XLA scatter (on a GPU that scatter itself uses atomics,
+so runs with sources are not bitwise reproducible there).
 
 Semantics reproduced exactly (cuda.cu:145-165):
   pos?  = floor((coord - o)/h)            per axis, f32 math
@@ -48,21 +49,14 @@ def build_source_term(
     grid: Grid3D,
     coords: np.ndarray | None,
     m: np.ndarray,
-    layout=None,
 ) -> SourceTerm:
     """Precompute corner indices/weights for static source coordinates.
 
     coords: [nsrc, 3] physical coordinates (or None for no sources).
     m:      reference-layout [nx+2H, ny+2H, nz+2H] medium field (host array).
-    layout: target Layout for the emitted indices (default: reference).
     """
-    from .layout import Layout
-
-    if layout is None:
-        layout = Layout.reference(grid)
     halo = grid.halo
-    pad_lo = layout.pad_lo
-    tgt_shape = np.array(layout.padded_shape)
+    tgt_shape = np.array(grid.padded_shape)
     if coords is None or coords.size == 0 or coords.shape[0] == 0:
         z = np.zeros((0,), dtype=np.int32)
         return SourceTerm(z, z, z, np.zeros((0,), np.float32), z, 0)
@@ -95,7 +89,7 @@ def build_source_term(
                     cell = pos[p] + np.array([rx, ry, rz])
                     valid = bool(np.all(cell >= -1) and np.all(cell <= sizes))
                     w = SOURCE_SCALE * wx * wy * wz / m_floor if valid else np.float32(0.0)
-                    padded = np.clip(cell + np.array(pad_lo), 0, tgt_shape - 1)
+                    padded = np.clip(cell + halo, 0, tgt_shape - 1)
                     ix.append(padded[0])
                     iy.append(padded[1])
                     iz.append(padded[2])
@@ -122,144 +116,3 @@ def inject(u: jnp.ndarray, term: SourceTerm, src_t: jnp.ndarray) -> jnp.ndarray:
         return u
     vals = (src_t[term.src_idx] * term.scale).astype(u.dtype)
     return u.at[term.ix, term.iy, term.iz].add(vals, mode="drop")
-
-
-def split_source_term(term: SourceTerm, lay) -> tuple:
-    """Map a reference-layout SourceTerm onto a ZSplitLayout: corners whose z
-    index falls in the z rim go to the zrim side array, the rest to the core.
-    (Corners one cell outside the interior are legal injection targets,
-    cuda.cu:155-156, and land in the rim.)"""
-    g = lay.grid
-    h = g.halo
-    dy = lay.py - h
-    dx = lay.px - h
-    if term.empty:
-        return term, term
-
-    iz = term.iz.astype(np.int64)
-    in_lo = iz < h
-    in_hi = iz >= h + g.nz
-    in_rim = in_lo | in_hi
-    iy = term.iy + np.int32(dy)
-    term = dataclasses.replace(term, ix=term.ix + np.int32(dx))
-
-    def pick(mask, iz_mapped):
-        return SourceTerm(
-            ix=term.ix[mask],
-            iy=iy[mask],
-            iz=iz_mapped[mask].astype(np.int32),
-            scale=term.scale[mask],
-            src_idx=term.src_idx[mask],
-            nsrc=term.nsrc,
-        )
-
-    # z-embedded cores keep the reference z coordinate (rim lanes live
-    # inside the core); rim-touching corners still go to the zrim side so
-    # callers that cannot honor per-level rim deposits can detect and
-    # reject them.
-    core_z = iz if getattr(lay, "z_embed", False) else iz - h
-    rim_z = np.where(in_lo, iz, h + (iz - h - g.nz))
-    core = pick(~in_rim, core_z)
-    zrim = pick(in_rim, rim_z)
-    return core, zrim
-
-
-def injection_propagation_cubes(grid: Grid3D, core_term: SourceTerm, m_val: float,
-                                dt: float):
-    """Per-source correction cubes for 2-step temporal fusion (C_2 only);
-    see injection_cubes_upto for the general K case."""
-    by_power = injection_cubes_upto(grid, core_term, m_val, dt, kmax=2)
-    return by_power.get(2, [])
-
-
-def injection_cubes_upto(grid: Grid3D, core_term: SourceTerm, m_val: float,
-                         dt: float, kmax: int, m_core=None):
-    """Correction cubes C_j (j = 2..kmax) for K-step temporal fusion.
-
-    m_core: heterogeneous-medium mode — the medium field in the SAME core
-    layout as core_term's (ix, iy, iz) indices (ZSplitLayout.split of the
-    reference m). Each source's mini propagation grid is then filled from
-    the local window around its deposit corners (FDTD is local: a deposit
-    spreads radius*(j-1) cells in j-1 steps, so only that window's m can
-    influence C_j; indices clamp at the core edge — clamped cells are
-    outside every kept cube whenever cubes_fit_core accepts). m_val is
-    ignored when m_core is given.
-
-    Injection is linear, so a unit deposit made into u_{n+1} propagates
-    through the homogeneous leapfrog as e_1 = w, e_j = A e_{j-1} - e_{j-2}
-    (e_0 = 0), where A d = 2d + dt^2 Lap(d)/m — i.e. e_j = oracle_step(
-    e_{j-1}, e_{j-2}). C_j here is e_j for each source's 8-corner trilinear
-    pattern w, computed on a tiny scratch grid. A fused K-block over sources
-    s_n..s_{n+K-1} is then corrected exactly (by superposition) as
-
-        u_{n+K-1} += sum_{i=1..K-1} C_{K-i}   * s_{n+i-1}
-        u_{n+K}   += sum_{i=1..K}   C_{K-i+1} * s_{n+i-1}
-
-    with C_1 applied as the plain scatter (SourceTerm). Returns
-    {j: [(slices_into_core, cube, src_index), ...]}; C_j spans
-    [floor - R*(j-1), floor + R*(j-1) + 2) per axis.
-    """
-    from .oracle import oracle_step
-
-    out: dict = {j: [] for j in range(2, kmax + 1)}
-    if core_term.empty or kmax < 2:
-        return out
-    R = grid.radius
-    n_mini = 16 + 8 * max(0, kmax - 3)
-    mini = Grid3D(n_mini, n_mini, n_mini, hx=grid.hx, hy=grid.hy, hz=grid.hz,
-                  order=grid.order)
-    h = mini.halo
-    ctr = h + n_mini // 2 - 1  # a center cell with room
-    m_fill = np.float32(1.0) if m_val is None else np.float32(m_val)
-    mfield = np.full(mini.padded_shape, m_fill, np.float32)
-    for p in range(core_term.nsrc):
-        sel = core_term.src_idx == p
-        if not np.any(sel):
-            continue
-        ix, iy, iz = core_term.ix[sel], core_term.iy[sel], core_term.iz[sel]
-        sc = core_term.scale[sel]
-        if sc.size == 0 or not np.any(sc != 0):
-            continue
-        fx, fy, fz = int(ix.min()), int(iy.min()), int(iz.min())
-        if m_core is not None:
-            # window radius: the kmax-1-step spread g + stencil reach R
-            wr = R * (kmax - 1) + R
-            di = np.arange(-wr, wr + 2)
-            cx = np.clip(fx + di, 0, m_core.shape[0] - 1)
-            cy = np.clip(fy + di, 0, m_core.shape[1] - 1)
-            cz = np.clip(fz + di, 0, m_core.shape[2] - 1)
-            mfield[:] = np.float32(m_core[fx, fy, fz])
-            mfield[np.ix_(ctr + di, ctr + di, ctr + di)] = np.asarray(
-                m_core, np.float32
-            )[np.ix_(cx, cy, cz)]
-        w = np.zeros(mini.padded_shape, np.float32)
-        for k in range(ix.shape[0]):
-            w[ctr + ix[k] - fx, ctr + iy[k] - fy, ctr + iz[k] - fz] += sc[k]
-        e_prev, e_cur = np.zeros_like(w), w
-        for j in range(2, kmax + 1):
-            e_prev, e_cur = e_cur, np.asarray(
-                oracle_step(e_cur, e_prev, mfield, mini, dt), np.float32
-            )
-            g = R * (j - 1)
-            side = 2 * g + 2
-            lo = ctr - g
-            cube = e_cur[lo : lo + side, lo : lo + side, lo : lo + side]
-            sl = tuple(slice(f - g, f - g + side) for f in (fx, fy, fz))
-            out[j].append((sl, cube, p))
-    return out
-
-
-def cubes_fit_core(cubes, core_shape, px, py, nz, z0: int = 0) -> bool:
-    """All correction cubes must sit fully inside the interior of the core
-    arrays (x in [px, nx+px), y in [py, ny+py), z in [z0, z0+nz) — z0 is
-    the embedded-rim offset for z_embed layouts, else 0)."""
-    nxp, nyp, _ = core_shape
-    for sl, cube, _p in cubes:
-        (sx, sy, sz) = sl
-        if sx.start < px or sx.stop > nxp - px:
-            return False
-        if sy.start < py or sy.stop > nyp - py:
-            return False
-        if sz.start < z0 or sz.stop > z0 + nz:
-            return False
-    return True

@@ -79,6 +79,9 @@ def append_row(
         nsrc,
         stencil_order,
     ]
+    # a metric that was not measured (efficiency on a device without
+    # published peaks) is an empty field, never a number
+    fields = ["" if v is None else v for v in fields]
     if _native_append is not None:
         _native_append(filename, fields)
         return

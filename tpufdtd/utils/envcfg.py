@@ -1,35 +1,33 @@
-"""Runtime config knobs via environment, mirroring the reference's env-routed
-hook (FDTD_USE_TC / FDTD_TFUSE / FDTD_NFIELDS -> FDTD_SetRuntimeConfig,
-main.cpp:82-84, 266-276 — the reference's hook is never implemented by any
-linked TU; here every knob is live).
+"""Process settings from the environment.
 
-  TPUFDTD_BACKEND        jnp | pallas            (default pallas)
-  TPUFDTD_STORAGE        float32 | bfloat16      (default float32)
-  TPUFDTD_TFUSE          timesteps fused per HBM pass (0 = auto)
-  TPUFDTD_VMEM_BUDGET    pallas VMEM budget in MiB (default 100)
-  TPUFDTD_PAIR           auto | on | off — paired-plane sweep mode
+  TPUFDTD_STORAGE   float32 | bfloat16 — storage dtype of the CLI perf phase
+                    (the reference's env-routed FDTD_* hook, main.cpp:82-84)
+
+`enable_compile_cache` places JAX's persistent compilation cache: where
+`JAX_COMPILATION_CACHE_DIR` is set, JAX already reads it and nothing is set
+here; otherwise the cache goes to `<checkout>/.jax_cache`, a fixed path, so
+later processes of the same checkout find it again.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import os
 
-
-@dataclasses.dataclass(frozen=True)
-class RuntimeConfig:
-    backend: str = "pallas"
-    storage: str = "float32"
-    t_fuse: int = 0
-    vmem_budget_mib: int = 100
-    pair: str = "auto"
+CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+DEFAULT_CACHE_DIR = os.path.join(CHECKOUT, ".jax_cache")
 
 
-def runtime_config() -> RuntimeConfig:
-    return RuntimeConfig(
-        backend=os.environ.get("TPUFDTD_BACKEND", "pallas"),
-        storage=os.environ.get("TPUFDTD_STORAGE", "float32"),
-        t_fuse=int(os.environ.get("TPUFDTD_TFUSE", "0")),
-        vmem_budget_mib=int(os.environ.get("TPUFDTD_VMEM_BUDGET", "100")),
-        pair=os.environ.get("TPUFDTD_PAIR", "auto"),
-    )
+def storage_dtype() -> str:
+    return os.environ.get("TPUFDTD_STORAGE", "float32")
+
+
+def enable_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at its directory; returns it.
+    Call before the first compilation."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)
+    return DEFAULT_CACHE_DIR

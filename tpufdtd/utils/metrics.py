@@ -1,10 +1,11 @@
 """Performance models — identical constants to the reference harness.
 
 FLOPs: flops/pt = 3*(order+1)*2 + 6 = 36 for order 4 (main.cpp:129-136).
-Bytes: naive 64 B/pt/step, optimized 12 B/pt/step (main.cpp:139-144); an
-additional `streaming` model (16 B/pt/step = read u0,u1,m + write u2 in f32)
-is the honest ideal for the TPU kernel and is what the %-of-peak headline
-uses. AI = flops/bytes (main.cpp:146-152).
+Bytes: the reference's naive 64 B/pt/step and optimized 12 B/pt/step
+(main.cpp:139-144) describe its own two kernels. What one step of either
+engine here moves is the `streaming` model: read u_cur, u_prev (storage
+dtype) and m (f32), write the target; 16 B/pt/step in f32. Rates and
+efficiencies of this program use it. AI = flops/bytes (main.cpp:146-152).
 
 Note the reference divides total-step FLOPs by a device time that covers only
 the timed (post-warmup) steps (main.cpp:429-431 passes `timesteps`=50 while
@@ -16,6 +17,12 @@ from __future__ import annotations
 BYTES_NAIVE = 64.0
 BYTES_OPTIMIZED = 12.0
 BYTES_STREAMING_F32 = 16.0
+
+
+def bytes_streaming(storage_itemsize: int = 4) -> float:
+    """Bytes per point one step moves: three levels in the storage dtype
+    (u_cur, u_prev read; target written) and the f32 medium."""
+    return 3.0 * storage_itemsize + 4.0
 
 
 def flops_per_point(stencil_order: int = 4) -> int:

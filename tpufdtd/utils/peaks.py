@@ -1,16 +1,14 @@
-"""TPU device detection and peak-spec model.
+"""Published device peaks, keyed on the `device_kind` JAX reports.
 
 The reference queries the CUDA device and derives peak HBM bandwidth and a
-rough FP32 peak, falling back to RTX 2080 Ti numbers (main.cpp:155-199,
-228-231). TPUs expose no clock/bus queries through JAX, so this is a table of
-published per-chip specs keyed on device_kind, with the same
-fallback-on-unknown behavior.
+rough FP32 peak (main.cpp:155-199). Here the peaks are a table of data-sheet
+numbers; a device that is not in the table is an error, never a default, so
+no efficiency is ever computed against the wrong card.
 
-Bandwidth/FLOPs figures are public per-chip numbers (Google Cloud TPU system
-architecture docs). "fp32 peak" for the stencil is a VPU estimate — the VPU
-is 8x128 lanes x 4 ALUs; the stencil never touches the MXU — so compute
-efficiency percentages are indicative, exactly as rough as the reference's
-cores-per-SM model.
+H100 SXM row: NVIDIA H100 Tensor Core GPU data sheet (SXM5 part, dense
+rates): 3.35 TB/s HBM3, 67 TFLOP/s FP32 outside the tensor cores (the
+stencil never uses them), 80 GB. The rates assume the card's full 700 W
+power limit; report `power.limit` beside every percentage.
 """
 
 from __future__ import annotations
@@ -22,40 +20,44 @@ import dataclasses
 class DevicePeaks:
     name: str
     hbm_gbps: float  # peak HBM bandwidth, GB/s
-    fp32_gflops: float  # VPU f32 peak estimate, GFLOP/s
-    bf16_mxu_tflops: float  # MXU bf16 peak, TFLOP/s (for reference)
-    hbm_gib: float  # HBM capacity
+    fp32_gflops: float  # FP32 peak outside the tensor cores, GFLOP/s
+    hbm_gb: float  # device memory, GB
 
 
-# clock * 8 sublanes * 128 lanes * 4 ALUs * 2 (fma) -> VPU f32 GFLOP/s estimate
-def _vpu(clock_ghz: float) -> float:
-    return clock_ghz * 8 * 128 * 4 * 2
-
-
-_TABLE = {
-    "TPU v4": DevicePeaks("TPU v4", 1228.0, _vpu(1.05), 275.0, 32.0),
-    "TPU v5 lite": DevicePeaks("TPU v5e", 819.0, _vpu(0.94), 197.0, 16.0),
-    "TPU v5e": DevicePeaks("TPU v5e", 819.0, _vpu(0.94), 197.0, 16.0),
-    "TPU v5": DevicePeaks("TPU v5p", 2765.0, _vpu(1.75), 459.0, 95.0),
-    "TPU v5p": DevicePeaks("TPU v5p", 2765.0, _vpu(1.75), 459.0, 95.0),
-    "TPU v6 lite": DevicePeaks("TPU v6e", 1640.0, _vpu(0.94), 918.0, 32.0),
-    "TPU v6e": DevicePeaks("TPU v6e", 1640.0, _vpu(0.94), 918.0, 32.0),
+TABLE = {
+    "NVIDIA H100 80GB HBM3": DevicePeaks("NVIDIA H100 SXM5 80GB", 3350.0, 67000.0, 80.0),
 }
 
-# fallback mirrors the reference's unknown-device default role (main.cpp:228)
-FALLBACK = _TABLE["TPU v5e"]
+
+def peaks_for(device_kind: str) -> DevicePeaks:
+    try:
+        return TABLE[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r}; add a row"
+            " with its data-sheet source to tpufdtd/utils/peaks.py"
+        ) from None
+
+
+def card_name_and_power() -> str:
+    """`name, power.limit` of the first card, as nvidia-smi reports them (a
+    child process that stays off JAX). The published rates assume the full
+    power limit, so this goes beside every measured number."""
+    import shutil
+    import subprocess
+
+    if shutil.which("nvidia-smi") is None:
+        raise RuntimeError("nvidia-smi not found")
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    return out.splitlines()[0]
 
 
 def detect_peaks() -> DevicePeaks:
-    try:
-        import jax
+    """Peaks of jax.devices()[0]; raises for a device not in the table
+    (the CPU included)."""
+    import jax
 
-        kind = jax.devices()[0].device_kind
-    except Exception:
-        return FALLBACK
-    if kind in _TABLE:
-        return _TABLE[kind]
-    for key, spec in _TABLE.items():
-        if kind.startswith(key):
-            return spec
-    return dataclasses.replace(FALLBACK, name=f"{kind} (unknown; v5e fallback)")
+    return peaks_for(jax.devices()[0].device_kind)
